@@ -6,7 +6,7 @@ from setuptools import find_packages, setup
 setup(
     name="vstrains-tpu",
     version="0.1.0",
-    description="TPU-native de novo viral strain reconstruction from "
+    description="Device-accelerated de novo viral strain reconstruction from "
                 "SPAdes assembly graphs and paired-end reads",
     packages=find_packages(include=["vstrains_tpu", "vstrains_tpu.*"]),
     package_data={"vstrains_tpu.native": ["*.cpp"]},

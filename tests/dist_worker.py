@@ -46,7 +46,7 @@ def main():
         k + 1, jax.process_index(), jax.process_count())
     res = infer_pe_links_multihost(index2id, index2seq, stripe, k,
                                    batch_size=256)
-    # large-N path: the sparse COO engine with per-host COO DCN merge
+    # large-N path: the sparse COO engine with per-host COO cross-host merge
     from vstrains_tpu.parallel.distributed import \
         infer_pe_links_sparse_multihost
     sres = infer_pe_links_sparse_multihost(index2id, index2seq, stripe,

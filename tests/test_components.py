@@ -138,3 +138,21 @@ def test_two_process_component_dispatch(tmp_path):
     for out in outs:
         got = _read_fasta(os.path.join(out, "strain.fasta"))
         assert got == ref, f"{out} diverges from single-process output"
+
+
+def _worker_platform():
+    import os
+
+    import jax
+    return os.environ.get("JAX_PLATFORMS"), jax.devices()[0].platform
+
+
+def test_component_workers_stay_off_the_accelerator(monkeypatch):
+    """Worker processes pin JAX to the CPU backend before any backend
+    starts, whatever platform the parent asked for, so they never open
+    the parent's card."""
+    from vstrains_tpu.parallel.components import host_worker_pool
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    with host_worker_pool(1) as ex:
+        assert ex.submit(_worker_platform).result(timeout=120) == (
+            "cpu", "cpu")

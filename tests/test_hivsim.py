@@ -1,8 +1,7 @@
 """evals/hivsim.py — the HIV-labmix-fidelity dataset generator.
 
 Checks the generator's structural contracts (the full-coverage benchmark
-itself runs via tools/hiv_fidelity.py and is recorded in
-hiv_fidelity_r4.json / BENCHMARKS.md):
+itself runs via tools/hiv_fidelity.py and chip_smoke.py):
 
   * the de-Bruijn unitig graph rebuilds every strain genome exactly
     (asserted inside the generator), parses as valid GFA, and each

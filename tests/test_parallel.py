@@ -285,7 +285,7 @@ def test_two_process_distributed_matches_serial(tmp_path):
                             batch_size=256)
     np.testing.assert_array_equal(merged["node_mat"], serial.node_mat)
     np.testing.assert_array_equal(merged["short_mat"], serial.short_mat)
-    # the sparse COO engine's two-process DCN merge must also equal the
+    # the sparse COO engine's two-process cross-host merge must also equal the
     # single-process sparse run
     ssing = infer_pe_links(index2id, index2seq, reads, 21,
                            batch_size=256, stats_mode="sparse")

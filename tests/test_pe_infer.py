@@ -340,13 +340,11 @@ def test_sparse_cap_overflow_retry(caplog):
 
 
 def test_stats_impls_agree():
-    """All three stats accumulators — scatter, one-hot, and the Pallas
-    VMEM-fused kernel (interpret mode off-TPU) — produce identical
+    """Both stats accumulators — scatter and one-hot — produce identical
     saturation masks, at duplicate depths above 1."""
     import jax.numpy as jnp
 
     from vstrains_tpu.ops import pe_infer as P
-    from vstrains_tpu.ops.pallas_kernels import stats_accum_pallas
 
     rng = np.random.RandomState(5)
     k = 11
@@ -379,14 +377,6 @@ def test_stats_impls_agree():
         split_len=split_len, max_dup=table.max_dup, num_nodes=N,
         stats_impl="onehot")
     np.testing.assert_array_equal(np.asarray(base), np.asarray(onehot))
-
-    # pallas path, interpret mode (no TPU in CI)
-    node_t = P._gather_node_slots(q1, h2qi, valid, lo, tab_h1, tab_h2,
-                                  tab_node, table.max_dup, N)
-    cnt, kmin = stats_accum_pallas(node_t, depth=table.max_dup,
-                                   num_nodes=N, interpret=True)
-    sat = P._saturate(cnt, kmin, lens, seq_lens, split_len)
-    np.testing.assert_array_equal(np.asarray(base), np.asarray(sat))
 
 
 def test_sortfill_probe_matches_classic_at_depth():
@@ -438,27 +428,6 @@ def test_dense_sortfill_mid_n_deep_dup_matches_oracle():
     nm, sm, *_ = oracle_pe_matrices(refs, fwd, rve, k)
     np.testing.assert_array_equal(a.node_mat, nm)
     np.testing.assert_array_equal(a.short_mat, sm)
-
-
-def test_stats_pallas_wide_grid_interpret():
-    """The column-chunked grid (C > one 128-column chunk, with sentinel
-    padding) and wide-N accumulators (N > 1024) match the scatter
-    accumulator in interpret mode."""
-    import jax.numpy as jnp
-
-    from vstrains_tpu.ops import pe_infer as P
-    from vstrains_tpu.ops.pallas_kernels import stats_accum_pallas
-
-    rng = np.random.RandomState(3)
-    R, C, N, depth = 64, 300, 1500, 4
-    nt = rng.randint(0, N + 1, size=(R, C)).astype(np.int32)
-    nt[rng.rand(R, C) < 0.6] = N  # misses carry the sentinel
-    node_t = jnp.asarray(nt)
-    cnt, kmin = stats_accum_pallas(node_t, depth=depth, num_nodes=N,
-                                   interpret=True)
-    cnt_ref, kmin_ref = P._slots_scatter_accum(node_t, depth, N)
-    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(cnt_ref))
-    np.testing.assert_array_equal(np.asarray(kmin), np.asarray(kmin_ref))
 
 
 def test_heavy_repeat_graph_beyond_sortfill_packing():
@@ -562,56 +531,6 @@ def test_explicit_sortfill_beyond_packing_falls_back():
     nm, sm, *_ = oracle_pe_matrices(refs, fwd, rve, k)
     np.testing.assert_array_equal(res.node_mat, nm)
     np.testing.assert_array_equal(res.short_mat, sm)
-
-
-def test_compile_race_cpu_path_matches_driver():
-    """_CompileRace's CPU-side batch path (CPU table copies, scatter
-    stats, separate accumulators + spill) produces the exact matrices
-    of the plain driver — the correctness half of the compile race; on
-    the accelerator the switch just changes which backend sums which
-    batches, and integer sums are split-invariant."""
-    import jax
-    import jax.numpy as jnp
-
-    import vstrains_tpu.ops.pe_infer as P
-
-    rng = np.random.RandomState(8)
-    k = 11
-    refs = _random_refs(rng, 6, [150, 200, 250, 150, 200, 250])
-    fwd, rve = _sample_reads(rng, refs, 300, 40, k)
-    batch = _make_batch(fwd, rve, k + 1)
-    ids = [str(i) for i in range(len(refs))]
-    base = infer_pe_links(ids, refs, batch, k, batch_size=128)
-
-    table = build_kmer_table(refs, k + 1)
-    N = table.num_nodes
-    node_bits = P._sortfill_node_bits(N)
-    probe_kw = dict(stats_impl="scatter", probe="sortfill",
-                    pays=jnp.asarray(
-                        P._build_sortfill_payloads(table, node_bits)),
-                    node_bits=node_bits, fill="cummin", stride=1)
-    empty = jnp.zeros(0, jnp.int32)
-    tab = (jnp.asarray(table.h1_biased), empty, empty,
-           jnp.asarray(table.seq_lens))
-    import logging
-    race = P._CompileRace(jax.devices("cpu")[0], table, tab, empty,
-                          probe_kw, k + 1, 128, N,
-                          logging.getLogger("race"))
-    race._spill_every = 2          # force mid-run spills
-    for kind, payload in P._wire_batches(batch, 128, as_numpy=True):
-        Tp = max(batch.fwd_codes.shape[1], batch.rve_codes.shape[1])
-        race.cpu_batch(kind, payload, Tp, table.max_dup)
-    nm, sm = race.finish()
-    np.testing.assert_array_equal(nm, base.node_mat)
-    np.testing.assert_array_equal(sm, base.short_mat)
-    # warm path: event set after the (cpu-as-accel) kernel call
-    race.start_warm(Tp)
-    import time
-    for _ in range(100):
-        if race.ready(Tp):
-            break
-        time.sleep(0.1)
-    assert race.ready(Tp)
 
 
 def test_length_buckets_plan():
@@ -796,9 +715,8 @@ def _run_with_feed_spy(ids, refs, batch, k, **kw):
     feeds = []
     orig = P._wire_batches
 
-    def spy(reads, bs, force_bytes=False, as_numpy=False):
-        for kind, payload in orig(reads, bs, force_bytes=force_bytes,
-                                  as_numpy=as_numpy):
+    def spy(reads, bs, force_bytes=False):
+        for kind, payload in orig(reads, bs, force_bytes=force_bytes):
             feeds.append(kind)
             yield kind, payload
 
@@ -918,3 +836,105 @@ def test_sparse_two_tier_full_pull_matches_dense():
     np.testing.assert_array_equal(
         _coo_to_dense(sparse.short_keys, sparse.short_counts, 8),
         dense.short_mat)
+
+
+@pytest.mark.parametrize("forced", [None, "scatter", "onehot", "bogus"])
+@pytest.mark.parametrize("shape", [(100, 95, 1), (773, 195, 4),
+                                   (3000, 95, 16)])
+def test_stats_impl_choice_ignores_platform(monkeypatch, forced, shape):
+    """The stats accumulator is a function of the shape (and the
+    VSTRAINS_STATS_IMPL override) alone: it never asks which backend or
+    device it runs on."""
+    import jax
+
+    import vstrains_tpu.ops.pe_infer as P
+
+    def boom(*a, **k):
+        raise AssertionError("_stats_impl_choice read the platform")
+
+    monkeypatch.setattr(jax, "default_backend", boom)
+    monkeypatch.setattr(jax, "devices", boom)
+    if forced is None:
+        monkeypatch.delenv("VSTRAINS_STATS_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("VSTRAINS_STATS_IMPL", forced)
+    got = P._stats_impl_choice(*shape)
+    assert got in P.STATS_IMPLS
+    if forced in P.STATS_IMPLS:
+        assert got == forced
+
+
+@pytest.mark.parametrize("n_nodes,batch,pairs,backend,sparse", [
+    (100, 16384, 1_000_000, "gpu", False),     # bench.py shape
+    (773, 16384, 388_928, "gpu", False),       # HIV labmix
+    (3000, 16384, 1_000_000, "gpu", False),
+    (4000, 16384, 1_000_000, "gpu", True),     # stats planes > budget
+    (50_000, 16384, 1_048_576, "gpu", True),   # metaSPAdes 50k
+    (2000, 16384, 100_000, "cpu", True),       # CPU: no matrix units
+    (2000, 16384, 60_000, "cpu", False),
+    (1024, 16384, 1_000_000, "cpu", False),
+])
+def test_sparse_cutover_by_nodes(n_nodes, batch, pairs, backend, sparse):
+    import vstrains_tpu.ops.pe_infer as P
+    assert P._sparse_cutover(n_nodes, batch, pairs, backend) is sparse
+
+
+def test_small_workload_keeps_default_device(monkeypatch):
+    """A library of <= 65,536 pairs runs on JAX's default device: the
+    engine never redirects jax_default_device to another backend."""
+    import jax
+
+    updates = []
+    orig = jax.config.update
+
+    def spy(name, value):
+        updates.append(name)
+        return orig(name, value)
+
+    monkeypatch.setattr(jax.config, "update", spy)
+    before = jax.config.jax_default_device
+    rng = np.random.RandomState(12)
+    k = 11
+    refs = _random_refs(rng, 4, [90, 100, 110, 120])
+    fwd, rve = _sample_reads(rng, refs, 64, 32, k)
+    batch = _make_batch(fwd, rve, k + 1)
+    assert batch.num_pairs <= 65536
+    infer_pe_links([str(i) for i in range(4)], refs, batch, k,
+                   batch_size=32)
+    assert jax.config.jax_default_device is before
+    assert "jax_default_device" not in updates
+
+
+def check_pair_matmuls_exact(B, N, all_ones):
+    """_pair_matmuls' float32 products equal int64 numpy products."""
+    import jax.numpy as jnp
+
+    import vstrains_tpu.ops.pe_infer as P
+    rng = np.random.RandomState(B + N)
+    if all_ones:
+        f = r = np.ones((B, N), np.float32)
+    else:
+        f = (rng.rand(B, N) < 0.3).astype(np.float32)
+        r = (rng.rand(B, N) < 0.3).astype(np.float32)
+    nm, sm = P._pair_matmuls_jit(jnp.asarray(f), jnp.asarray(r),
+                                 num_nodes=N)
+    fi, ri = f.astype(np.int64), r.astype(np.int64)
+    np.testing.assert_array_equal(np.asarray(nm), fi.T @ ri)
+    np.testing.assert_array_equal(np.asarray(sm),
+                                  np.triu(fi.T @ fi + ri.T @ ri))
+
+
+@pytest.mark.parametrize("n_nodes,all_ones", [(8, True), (40, True),
+                                              (40, False)])
+def test_pair_matmuls_exact_at_2_14(n_nodes, all_ones):
+    """At B = 2^14 with all-ones rows every cell sums to B (or 2B): the
+    float32 accumulation stays exact below 2^24."""
+    check_pair_matmuls_exact(1 << 14, n_nodes, all_ones)
+
+
+def test_batch_above_exact_bound_rejected():
+    import vstrains_tpu.ops.pe_infer as P
+    batch = _make_batch(["ACGTACGTACGTACGT"], ["ACGTACGTACGTACGT"], 12)
+    with pytest.raises(ValueError, match="exact"):
+        infer_pe_links(["x"], ["ACGTACGTACGTACGTACGT"], batch, 11,
+                       batch_size=P.MAX_EXACT_BATCH + 1)

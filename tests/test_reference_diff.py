@@ -9,7 +9,7 @@ upgrading every "oracle-equal" claim in this suite to "reference-equal".
 Covered divergence surfaces:
   * hit counting + min-coord/min-kindex accumulation (PE_Inference.py:24-31)
   * the saturation formula incl. float-vs-int boundary (:39-47)
-  * pair-loop link accumulation vs our MXU matmuls (:174-188)
+  * pair-loop link accumulation vs our device matmuls (:174-188)
   * N-read / short-read filtering (:160-165)
   * the N^2 `u:v:count` file format (:190-207)
 """

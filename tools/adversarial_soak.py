@@ -11,7 +11,7 @@ records where exact recovery first degrades:
 
 Each config runs the FULL pipeline on the CPU backend (tiny graphs)
 and scores exact-haplotype recovery. Output: JSON + a markdown table
-for BENCHMARKS.md.
+for a report.
 
     JAX_PLATFORMS=cpu python tools/adversarial_soak.py --out frontier.json
 """

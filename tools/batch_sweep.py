@@ -5,9 +5,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

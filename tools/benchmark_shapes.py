@@ -16,7 +16,7 @@ both strain.fasta against the truth with the in-repo NGA50
 (VERDICT r4 ask #4).
 
 Env: SHAPES (comma list, default all), SHAPE_COVERAGE (override for
-quick runs), SHAPE_SEED (0), SHAPE_OUT (benchshapes_r5.json),
+quick runs), SHAPE_SEED (0), SHAPE_OUT (benchshapes.json),
 SHAPE_SKIP_REF, SHAPE_REF_TIMEOUT (7200s per shape), SHAPE_WORKDIR.
 """
 
@@ -28,8 +28,6 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -50,7 +48,7 @@ def main():
     coverage = float(coverage) if coverage else None
     seed = int(os.environ.get("SHAPE_SEED", 0))
     out_json = os.environ.get("SHAPE_OUT",
-                              os.path.join(REPO, "benchshapes_r5.json"))
+                              os.path.join(REPO, "benchshapes.json"))
     skip_ref = os.environ.get("SHAPE_SKIP_REF", "") not in ("", "0")
     ref_timeout = float(os.environ.get("SHAPE_REF_TIMEOUT", 7200))
     workdir = os.environ.get("SHAPE_WORKDIR") or tempfile.mkdtemp(

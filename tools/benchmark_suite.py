@@ -3,8 +3,8 @@
 
 Synthesizes each config locally (the reference's real datasets are not
 redistributable; generator in evals/synth.py), runs the end-to-end
-pipeline, and reports recovery + stage timings. Run on TPU (default env)
-or CPU (JAX_PLATFORMS=cpu).
+pipeline, and reports recovery + stage timings. Runs on the default
+device, or the CPU with JAX_PLATFORMS=cpu.
 
     python tools/benchmark_suite.py [--out results.json]
 """

@@ -11,9 +11,6 @@ Env: CUT_NS ("1000,2000,4000"), CUT_PAIRS (262144), CUT_BS (16384).
 """
 import json, os, sys, time
 import numpy as np
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 

@@ -14,8 +14,6 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -52,9 +50,7 @@ def main():
     print(f"wire_pack  {dt:7.2f}s  ({nb} batches, "
           f"{reads.num_pairs / dt:.0f} pairs/s)")
 
-    # 2. full driver, warm (force the accelerator path in the warmup so
-    # the small-workload CPU fallback doesn't leave compile in the timing)
-    os.environ["VSTRAINS_FORCE_BACKEND"] = "probe"
+    # 2. full driver, warm
     t0 = time.time()
     warm = P.infer_pe_links(ids, index2seq, _slice(reads, batch_size),
                             k, batch_size=batch_size)

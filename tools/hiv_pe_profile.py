@@ -1,12 +1,9 @@
 #!/usr/bin/env python3
-"""Decompose the HIV-shape PE stage (the flagship E2E bottleneck).
+"""Decompose the HIV-shape PE stage.
 
-Round-5 finding: the warm fresh-process HIV run spends ~137s in the
-pe_inference stage while the engine headline is ~3s per million pairs —
-a ~30x gap that is NOT compile time (no new cache file on the warm
-run). This probe times each phase of the stage in isolation on the
-same dataset: FASTQ load, table build, wire pack, and the batch stream
-with/without the compile race, plus per-batch walls.
+Times each phase of the stage in isolation on the simulated HIV labmix:
+graph stages, FASTQ load, table build, and two engine calls on the same
+shape (the first pays the compile).
 
 Env: HIV_COVERAGE (20000), HIV_SEED (0), HPP_OUT.
 """
@@ -18,9 +15,6 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -80,8 +74,7 @@ def main():
     rec["table_entries"] = tbl.num_entries
     rec["max_dup"] = tbl.max_dup
 
-    for label, race in (("race_on", "1"), ("race_off", "0")):
-        os.environ["VSTRAINS_COMPILE_RACE"] = race
+    for label in ("first", "second"):
         t0 = time.time()
         res = infer_pe_links(ids, seqs, reads, ksize, batch_size=16384,
                              table=tbl, logger=logger)

@@ -15,8 +15,7 @@ when real multi-chip hardware appears, BASELINE.json's
 
 Output: one JSON object with, per mesh shape (data x model), sustained
 reads/s, per-batch wall, and `bit_equal` vs the single-chip matrices.
-Timing follows the relay rules (docs/BENCHMARKS caveats): one scalar
-materialization per repetition, warmup excluded.
+Timing: one scalar materialization per repetition, warmup excluded.
 """
 
 import argparse
@@ -25,9 +24,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

@@ -14,9 +14,6 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 

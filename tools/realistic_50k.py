@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """N=50,000 realistic benchmark + correctness lattice (round-3 deliverable).
 
-Three pieces, one JSON (default realistic_r4_tpu.json):
+Three pieces, one JSON (default chiprun_out/realistic_50k.json):
 
 1. ENGINE — 50k-node synthetic graph (14.5M-entry table), 1M read
    pairs, timed end-to-end on this backend including the in-driver
@@ -36,33 +36,80 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 REF_SCRIPT = "/root/reference/utils/VStrains_PE_Inference.py"
 
 
+_RC = str.maketrans("ACGT", "TGCA")
+
+
+def _revcomp_marked(seq: str) -> str:
+    """Reverse complement with every non-ACGT character mapped to '#',
+    so a slice holds '#' iff its forward window had a non-ACGT base."""
+    return "".join("#" if c not in "ACGT" else c
+                   for c in seq).translate(_RC)[::-1]
+
+
 def sparse_oracle(seqs, fwd_reads, rve_reads, kmer_size, n_nodes):
     """tests/oracle_pe.py semantics with dict (COO) accumulation so
-    N=50k fits in memory. Returns (pe_dict, st_dict) keyed u*N+v."""
-    from tests.oracle_pe import build_table, map_single_end
+    N=50k fits in memory. Returns (pe_dict, st_dict) keyed u*N+v.
 
+    Two changes of representation, neither of which can change a count:
+    the string k-mer table holds only k-mers that occur in the given
+    reads (no other entry can ever match), and each read's per-node
+    stats are dicts over the nodes it hits, visited in node order as
+    oracle_pe.map_single_end visits them."""
     split_len = kmer_size + 1
     seqlens = [len(s) for s in seqs]
     t0 = time.time()
-    table = build_table(seqs, split_len)
+    wanted = set()
+    for reads in (fwd_reads, rve_reads):
+        for s in reads:
+            for i in range(len(s) - split_len + 1):
+                wanted.add(s[i: i + split_len])
+    table = {}
+    for node, seq in enumerate(seqs):
+        n = len(seq)
+        rc = _revcomp_marked(seq)
+        for off in range(n - split_len + 1):
+            kmer = seq[off: off + split_len]
+            if kmer in wanted:
+                table.setdefault(kmer, []).append((node, off))
+            rk = rc[n - split_len - off: n - off]
+            if rk in wanted and "#" not in rk:
+                table.setdefault(rk, []).append((node, off))
     print(f"# oracle table: {time.time() - t0:.0f}s", file=sys.stderr)
+
+    def saturated(seq):
+        counts, coords, kidx = {}, {}, {}
+        rlen = len(seq)
+        for i in range(rlen - split_len + 1):
+            for rid, rcord in table.get(seq[i: i + split_len], ()):
+                counts[rid] = counts.get(rid, 0) + 1
+                coords[rid] = min(coords.get(rid, sys.maxsize), rcord)
+                kidx[rid] = min(kidx.get(rid, sys.maxsize), i)
+        out = []
+        for rid in sorted(counts):
+            c, ki = coords[rid], kidx[rid]
+            L = max(c, c - ki)
+            R = min(c + seqlens[rid] - 1, c - ki + rlen - 1)
+            sat = R - L - (split_len - 1) + 1
+            expected = ((min(rlen, seqlens[rid]) - split_len + 1)
+                        * (rlen - split_len) / rlen)
+            if counts[rid] >= max(min(sat, expected), 1):
+                out.append(rid)
+        return out
+
     pe, st = {}, {}
     for fseq, rseq in zip(fwd_reads, rve_reads):
         if fseq.count("N") or rseq.count("N"):
             continue
         if len(fseq) < split_len or len(rseq) < split_len:
             continue
-        lefts = map_single_end(fseq, table, seqlens, split_len, n_nodes)
-        rights = map_single_end(rseq, table, seqlens, split_len, n_nodes)
+        lefts = saturated(fseq)
+        rights = saturated(rseq)
         for ends in (lefts, rights):
             for a, i in enumerate(ends):
                 for i2 in ends[a:]:
@@ -100,7 +147,7 @@ def main():
     ref_nodes = int(os.environ.get("R50K_REF_NODES", 5000))
     ref_pairs = int(os.environ.get("R50K_REF_PAIRS", 20_000))
     out_path = os.environ.get(
-        "R50K_OUT", os.path.join(REPO, "realistic_r4_tpu.json"))
+        "R50K_OUT", os.path.join(REPO, "chiprun_out", "realistic_50k.json"))
 
     import jax
     from bench import synth_workload
@@ -237,6 +284,7 @@ def main():
     print(f"# reference byte-diff identical: {ref_same}", file=sys.stderr)
 
     print(json.dumps(rec))
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump(rec, fh, indent=2)
         fh.write("\n")

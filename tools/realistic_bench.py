@@ -13,7 +13,7 @@ graph (including 10kb nodes) with >= 1M read pairs, measuring
 Writes one JSON to --out (and stdout). Honest backend labeling: refuses
 to run if --expect-backend mismatches.
 
-    python tools/realistic_bench.py --out realistic_r2_tpu.json
+    python tools/realistic_bench.py --out realistic_bench.json
     JAX_PLATFORMS=cpu python tools/realistic_bench.py \
         --expect-backend cpu --pairs 50000
 """
@@ -27,12 +27,9 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 # the warmup slice is small enough to trip the engine's tiny-workload
 # CPU fallback, which would leave the accelerator compile inside the
 # timed run — force the requested backend for the whole benchmark
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

@@ -2,10 +2,10 @@
 """Per-variant compute probe at realistic scale (N~1k nodes, M~1M-entry
 table, max_dup ~10): which stats/probe path should mid-size graphs take?
 
-Relay-proof like pe_profile2: pre-staged device inputs, scalar-reduced
-outputs, deltas between timed loops are the per-stage costs.
+Like pe_profile2: pre-staged device inputs, scalar-reduced outputs,
+deltas between timed loops are the per-stage costs.
 
-    python tools/realistic_probe.py            # TPU
+    python tools/realistic_probe.py            # default device
     JAX_PLATFORMS=cpu python tools/realistic_probe.py
 """
 
@@ -16,8 +16,6 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -144,19 +142,6 @@ def main():
             return _scalar(node_t)
 
         variants["sortfill_slots_only"] = v_sortfill_slots
-
-        def v_sortfill_pallas(codes, lens):
-            from vstrains_tpu.ops.pallas_kernels import stats_accum_pallas
-            node_t = P._sortfill_node_slots(
-                codes, lens, tab_h1, pays, split_len, N,
-                fill="cummin", node_bits=node_bits)
-            cnt, kmin = stats_accum_pallas(node_t, depth=D, num_nodes=N)
-            sat = P._saturate(cnt, kmin, lens, seq_lens, split_len)
-            B = codes.shape[0] // 2
-            nm, sm = P._pair_matmuls(sat[:B], sat[B:], N)
-            return _scalar(nm) + _scalar(sm)
-
-        variants["dense_sortfill_pallas"] = v_sortfill_pallas
 
         def v_sortfill_onehot(codes, lens):
             node_t = P._sortfill_node_slots(

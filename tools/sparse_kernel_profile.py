@@ -1,13 +1,11 @@
 #!/usr/bin/env python3
 """Cumulative sub-stage profile of the production 50k sparse kernel.
 
-The roofline probes pinned the device at ~209 ms/batch (78k reads/s)
-with the join sort estimated at only ~25% — this tool measures where
-the rest goes. Five jitted variants over the SAME device-resident
+Measures where the kernel's device time goes. Five jitted variants over the SAME device-resident
 inputs, each stopping one stage later (tiny reduction output defeats
 DCE; deltas between variants attribute the wall):
 
-  hash      window hashes (VPU prefix-sum factorization)
+  hash      window hashes (prefix-sum factorization)
   +join     + the (Q + M/S key, iota) sort, reverse cummin, qpos scatter
   +block    + the (B, K, S) anchor-block gather + compare
   +pays     + the (B, K, D) payload row gather + mask -> node_t
@@ -26,9 +24,6 @@ from functools import partial
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 

@@ -17,9 +17,6 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/vstrains_tpu_jax"))
-os.environ.setdefault("VSTRAINS_FORCE_BACKEND", "bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -73,22 +70,22 @@ def main():
         hd, sat = dispatch(payload)
         np.asarray(sat)
 
-    acc = {"pack": 0.0, "h2d+dispatch": 0.0, "sync": 0.0, "drain": 0.0}
+    acc = {"pack+h2d": 0.0, "dispatch": 0.0, "sync": 0.0, "drain": 0.0}
     t_all = time.time()
     n_batches = 0
     # serialized phases (no thread overlap) for clean attribution
-    gen = _wire_batches(reads, bs, as_numpy=True)
+    gen = _wire_batches(reads, bs)
     while True:
         t0 = time.time()
         item = next(gen, None)
-        acc["pack"] += time.time() - t0
+        acc["pack+h2d"] += time.time() - t0
         if item is None:
             break
         kind, payload = item
         assert kind == "wire"
         t0 = time.time()
-        hd, sat = dispatch(jnp.asarray(payload))
-        acc["h2d+dispatch"] += time.time() - t0
+        hd, sat = dispatch(payload)
+        acc["dispatch"] += time.time() - t0
         t0 = time.time()
         sn = np.asarray(sat)
         acc["sync"] += time.time() - t0

@@ -21,7 +21,7 @@ from vstrains_tpu import __version__
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vstrains-tpu",
-        description="TPU-native construction of full-length viral strains "
+        description="Device-accelerated construction of full-length viral strains "
                     "from contigs and assembly graph (SPAdes)")
     parser.add_argument("-a", "--assembler", dest="assembler", type=str,
                         required=True, choices=["spades"],

@@ -1,14 +1,14 @@
 """DNA sequence primitives: 2-bit-style encoding, reverse complement, rolling
 window hashes.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 Node/read sequences are encoded to small-integer code arrays (A,C,G,T -> 0..3,
 anything else -> BAD_CODE) so that k-mer extraction and matching become integer
 tensor ops.  Exact (k+1)-mer identity is represented by a pair of independent
 32-bit polynomial window hashes (two lanes, odd multipliers, natural uint32
-wrap-around) — 64 bits of discrimination without needing 64-bit integer ops on
-TPU (int64 is emulated there).  The same hash function runs:
+wrap-around) — 64 bits of discrimination without 64-bit integer ops (JAX runs
+without x64 by default).  The same hash function runs:
   * on host (numpy, table construction over graph node sequences), and
   * on device (jnp, the per-read-batch probe kernel in ops/pe_infer.py).
 

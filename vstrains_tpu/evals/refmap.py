@@ -5,7 +5,7 @@ contigs / strains against known strain references
 (/root/reference/utils/VStrains_Utilities.py:34-144,
 VStrains_Decomposition.py:1045-1071). Its node-level criterion is
 `nm == 0 and match_region == seg_len` — i.e. the node is an *exact
-substring* of the strain — so the TPU-native replacement needs no aligner:
+substring* of the strain — so the device-side replacement needs no aligner:
 
   * node -> strain: exact substring containment (either strand), seeded by
     the PE engine's k-mer hashes and verified by direct comparison;

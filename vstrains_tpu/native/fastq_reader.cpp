@@ -1,5 +1,5 @@
 // Native FASTQ pair loader: parse + filter + 2-bit-style pack, feeding the
-// TPU PE-link inference engine.
+// device PE-link inference engine.
 //
 // Replaces the Python readlines() loop of the reference
 // (/root/reference/utils/VStrains_PE_Inference.py:147-165) on the host

@@ -129,7 +129,7 @@ def _allgather_json(obj, logger: logging.Logger = None):
 
     Strain dicts are tiny host data, so they travel as length-padded
     uint8 buffers through two `process_allgather` calls (lengths, then
-    payload bytes) — the DCN control-plane analogue of the int32-halves
+    payload bytes) — the cross-host control-plane analogue of the int32-halves
     matrix merge in parallel/distributed.py."""
     import json
 
@@ -193,6 +193,28 @@ def run_components_multihost(view: GraphView, contig_dict: dict,
     return merged
 
 
+def _host_only_worker() -> None:
+    """Worker-process initializer: pin this process's JAX to the CPU
+    backend before anything can initialize a backend. Workers run host
+    graph algorithms (assign_edge_flow's device branch included), and the
+    parent process owns the accelerator: a JAX process that opens a GPU
+    reserves most of its memory, so a worker that touched the card would
+    fail for want of memory, or starve the parent."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+
+
+def host_worker_pool(workers: int) -> ProcessPoolExecutor:
+    """Process pool for host-side component work, kept off the device
+    (_host_only_worker). Spawned, not forked: fork is unsafe in a
+    process with live JAX runtime threads."""
+    return ProcessPoolExecutor(
+        max_workers=workers,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_host_only_worker)
+
+
 def run_components(view: GraphView, contig_dict: dict, pe_info: dict,
                    dcpy_pe_info: dict, delta: float,
                    workers: int = 1,
@@ -204,9 +226,7 @@ def run_components(view: GraphView, contig_dict: dict, pe_info: dict,
     logger.info("per-component extraction: %d components, %d workers",
                 len(payloads), workers)
     if workers > 1 and len(payloads) > 1:
-        # spawn: fork is unsafe in a process with live JAX runtime threads
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
+        with host_worker_pool(workers) as ex:
             results = list(ex.map(process_component, payloads,
                                   [delta] * len(payloads)))
     else:

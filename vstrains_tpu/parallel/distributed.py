@@ -1,4 +1,5 @@
-"""Multi-host (multi-process) scaling over DCN + ICI.
+"""Multi-host (multi-process) scaling: NVLink within a host, the host
+network across hosts.
 
 The reference has no distributed backend at all (SURVEY.md §2); this is
 the new multi-host design:
@@ -13,8 +14,8 @@ the new multi-host design:
     integer accumulation is order-invariant);
   * the global mesh spans all hosts' devices on the `data` axis (and
     optionally `model` within each host); the single psum at the end of
-    the PE step merges per-chip matrices over ICI within a host and DCN
-    across hosts — bit-identical to the serial loop.
+    the PE step merges per-device matrices over NVLink within a host and
+    over the network across hosts — bit-identical to the serial loop.
 
 Single-process runs degrade to parallel.mesh.infer_pe_links_sharded.
 """
@@ -46,8 +47,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize multi-controller JAX. No-ops for single-process runs.
 
     Arguments default to the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU pod's automatic configuration). Returns the process index.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Returns the process index.
     """
     logger = logger or _LOG
     coordinator_address = (coordinator_address
@@ -97,7 +98,7 @@ def infer_pe_links_multihost(ids: Sequence[str], seqs: Sequence[str],
     `local_reads` is this host's stripe. Per-host partial matrices are
     computed with the DPxTP sharded step over the *local* devices, then
     all-reduced across processes (integer sums — order-free). This
-    two-level merge (ICI psum inside the step, DCN allreduce across
+    two-level merge (psum inside the step, allreduce across
     hosts) matches the north-star design and avoids constructing global
     arrays from per-host data.
     """
@@ -115,8 +116,8 @@ def infer_pe_links_multihost(ids: Sequence[str], seqs: Sequence[str],
         # (large N); merge COO chunks across hosts instead of matrices
         return _merge_sparse_hosts(ids, local)
 
-    # DCN merge: sum the int64 host matrices across processes. TPU jnp
-    # lacks int64, so each matrix travels as (low31, high) int32 halves
+    # cross-host merge: sum the int64 host matrices across processes.
+    # jnp runs without x64, so each matrix travels as (low31, high) int32 halves
     # and is reassembled exactly on host.
     import jax.numpy as jnp
     from jax.experimental.multihost_utils import process_allgather
@@ -137,7 +138,7 @@ def infer_pe_links_multihost(ids: Sequence[str], seqs: Sequence[str],
 def _allgather_ragged_int64(arr: np.ndarray):
     """process_allgather of per-host int64 arrays of DIFFERENT lengths:
     gather sizes first, zero-pad to the max, travel as (low31, high)
-    int32 halves (TPU jnp lacks int64), reassemble exactly and strip
+    int32 halves (jnp runs without x64), reassemble exactly and strip
     each host's padding. Returns the per-host list."""
     import jax.numpy as jnp
     from jax.experimental.multihost_utils import process_allgather
@@ -157,7 +158,7 @@ def _allgather_ragged_int64(arr: np.ndarray):
 
 def _merge_sparse_hosts(ids: Sequence[str],
                         local: PESparseResult) -> PESparseResult:
-    """DCN merge of per-host sparse COO results: allgather the ragged
+    """Cross-host merge of per-host sparse COO results: allgather the ragged
     (keys, counts) chunks and re-reduce — integer sums over sorted
     unique keys, bit-identical to a single-host run on the union of
     stripes."""
